@@ -1,5 +1,5 @@
 """Compatibility shim: the reference's ``MCsimlib`` module surface
-(/root/reference/MCsimlib.py), backed by the TPU-native inference and
+(/root/reference/MCsimlib.py), backed by the batched device inference and
 simulation layers."""
 
 # Proteome prep + analytic model (sim/proteome.py)
@@ -70,7 +70,7 @@ from fluorosequencingimageanalysis_tpu.native import (  # noqa
     have_native, random_signal_batch, monte_carlo_trie_native)
 
 # Nested-pool helpers (MCsimlib.py:3475-3487). Retained for API parity;
-# the TPU build's parallelism is sharded array programs, not process pools.
+# this build's parallelism is sharded array programs, not process pools.
 import multiprocessing
 import multiprocessing.pool
 

@@ -35,7 +35,8 @@ def build_parser():
     parser.add_argument("-D", "--debug", action="store_true",
                         help="Debug-level logging.")
     parser.add_argument("-n", "--num_processes", type=int, nargs=1,
-                        default=[None], help="Compatibility; ignored on TPU.")
+                        default=[None],
+                        help="Compatibility; ignored (batched on the device).")
     default_log_path = os.path.join(
         os.getcwd(), "basic_experiment_script_" +
         str(datetime.datetime.now()).replace(" ", "_") + ".log")

@@ -45,7 +45,8 @@ def build_parser():
     parser.add_argument("-n", "--num_processes", type=int, nargs=1,
                         default=[None],
                         help="Number of processes to use (accepted for "
-                             "compatibility; the TPU batch path ignores it).")
+                             "compatibility; the device batch path ignores "
+                             "it).")
     default_log_path = os.path.join(
         os.getcwd(), "basic_image_script_" +
         str(datetime.datetime.now()).replace(" ", "_") + ".log")

@@ -1,5 +1,5 @@
 """Compatibility shim: the reference's ``flexlibrary`` module
-(/root/reference/flexlibrary.py), backed by the TPU-native pipeline
+(/root/reference/flexlibrary.py), backed by the batched device pipeline
 layer."""
 
 from fluorosequencingimageanalysis_tpu.pipeline import (  # noqa

@@ -2,9 +2,9 @@
 fluorosequencingimageanalysis_tpu
 =================================
 
-A TPU-native JAX framework for fluorosequencing image analysis, providing the
+A JAX framework for fluorosequencing image analysis, providing the
 capabilities of the reference pipeline (marcottelab/FluorosequencingImageAnalysis)
-redesigned for XLA/Pallas/pjit execution:
+redesigned as batched, sharded XLA programs (run on NVIDIA GPUs):
 
 - Spot (peptide PSF) detection and batched 2D-Gaussian PSF fitting
   (reference: pflib.py) as fused, vmapped array programs.
@@ -36,50 +36,28 @@ Reference-compatible CLI entry points live as top-level scripts
 __version__ = "0.1.0"
 
 
-def _machine_cache_key():
-    """Short stable key for this machine type: arch + OS + CPU model +
-    CPU feature flags. XLA:CPU AOT results bake in LLVM's host-detected
-    target features, which include per-MODEL tuning flags (e.g.
-    ``prefer-no-gather``) that two machines with identical cpuinfo
-    feature lists can still disagree on — so the model name is part of
-    the key, not just the flags. Hashed so the directory name stays
-    short."""
-    import hashlib
-    import platform
+def compile_cache_dir():
+    """Directory of the persistent XLA compile cache: the
+    ``JAX_COMPILATION_CACHE_DIR`` environment variable when it is set,
+    else ``.jax_cache/`` in the checkout that holds this package. The
+    path is part of the cache key, so it stays fixed."""
+    import os
 
-    bits = [platform.machine(), platform.system()]
-    try:
-        with open("/proc/cpuinfo") as f:
-            # First processor block only: model name plus the raw
-            # family/model/stepping numbers LLVM's CPUID-based host
-            # detection keys its tuning on.
-            want = ("model name", "cpu family", "model\t", "model:",
-                    "stepping", "flags", "Features")
-            seen = set()
-            for line in f:
-                if line.strip() == "" and seen:
-                    break  # end of the first processor block
-                for w in want:
-                    if line.startswith(w) and w not in seen:
-                        seen.add(w)
-                        val = line.split(":", 1)[1].strip()
-                        if w in ("flags", "Features"):
-                            val = " ".join(sorted(val.split()))
-                        bits.append(f"{w}={val}")
-                        break
-    except OSError:
-        bits.append(platform.processor() or "unknown")
-    return hashlib.sha1("|".join(bits).encode()).hexdigest()[:12]
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
 
 
 def _enable_persistent_compile_cache():
     """Persistent XLA compile cache, on by default.
 
-    TPU compiles of the big programs (512x512 detect, chunked stepfit /
-    v8 buckets) cost 20 s - minutes on constrained backends; the disk
-    cache makes every later process hit them in milliseconds. Opt out
-    with FLUORO_TPU_NO_COMPILE_CACHE=1 or point the directory elsewhere
-    with JAX_COMPILATION_CACHE_DIR (which JAX itself also honors).
+    Compiles of the big programs (512x512 detect, chunked stepfit / v8
+    buckets) cost seconds each; the disk cache makes every later process
+    load them instead. Opt out with FLUORO_TPU_NO_COMPILE_CACHE=1.
+    Every compiled program is cached (minimum compile time 0), so a
+    warm process compiles nothing.
 
     Importing this package must stay jax-free (CLI --help, sim-only
     consumers), so when jax is not yet loaded the cache is configured
@@ -91,36 +69,21 @@ def _enable_persistent_compile_cache():
 
     if os.environ.get("FLUORO_TPU_NO_COMPILE_CACHE"):
         return
-    try:
-        if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-            return  # user already configured it; JAX reads the env var
-        # Scope the cache directory by a MACHINE key: XLA:CPU AOT entries
-        # bake in the compiling host's CPU feature set, and jax's own
-        # cache key does not include it — loading an entry compiled on a
-        # different machine type logs "could lead to SIGILL" warnings
-        # today and can actually crash on a weaker host. A shared $HOME
-        # across machine types (clusters, containers) must not share
-        # these entries.
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "fluoro_tpu_jax_cache",
-            _machine_cache_key())
-        os.makedirs(cache_dir, exist_ok=True)
-        if "jax" in sys.modules:
-            jax = sys.modules["jax"]
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.5)
-            # Concurrent compiles of one shape are normal here (probe
-            # subprocesses, multi-process tests/benches); jax's stock
-            # cache write is torn-entry-prone (utils/jaxcache docstring).
-            from .utils.jaxcache import ensure_atomic_cache_writes
-            ensure_atomic_cache_writes()
-        else:
-            os.environ["JAX_COMPILATION_CACHE_DIR"] = cache_dir
-            os.environ.setdefault(
-                "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    cache_dir = compile_cache_dir()
+    min_secs = os.environ.setdefault(
+        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
+    if "jax" in sys.modules:
+        jax = sys.modules["jax"]
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          float(min_secs))
+        # Concurrent compiles of one shape happen (multi-process tests
+        # and hosts); jax's stock cache write is torn-entry-prone
+        # (utils/jaxcache docstring).
+        from .utils.jaxcache import ensure_atomic_cache_writes
+        ensure_atomic_cache_writes()
+    else:
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = cache_dir
 
 
 _enable_persistent_compile_cache()

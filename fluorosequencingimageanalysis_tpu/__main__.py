@@ -1,4 +1,4 @@
-"""The TPU-native CLI front door: ``python -m fluorosequencingimageanalysis_tpu``.
+"""The CLI front door: ``python -m fluorosequencingimageanalysis_tpu``.
 
 The seven reference-compatible scripts at the repo root keep the exact old
 flags and artifacts; this is the redesigned interface over api.Pipeline,

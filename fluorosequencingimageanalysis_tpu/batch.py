@@ -3,7 +3,7 @@
 Parity with pflib's output writers and batch drivers
 (/root/reference/pflib.py:594-711, 883-1111). The reference's
 multiprocessing fan-out (load-balanced by candidate counts,
-pflib.py:1000-1111) is unnecessary on TPU — every field costs the same
+pflib.py:1000-1111) is unnecessary here — every field costs the same
 under SIMD padding — so parallel_image_batch accepts num_processes for
 compatibility and simply batches the images through the device.
 """
@@ -75,12 +75,26 @@ def save_psfs_csv(psfs, image_path=None, timestamp_epoch=None,
 from .utils.profiling import stage as _stage
 
 
+def _raise_if_device_failure(exc):
+    """Re-raise ``exc`` when it is a device or backend failure.
+
+    The batch drivers skip a failed image, like the reference's
+    checkpointing. A failed device is no failed image: skipping it would
+    process no image at all and still exit 0, so it propagates."""
+    import jax
+
+    if isinstance(exc, jax.errors.JaxRuntimeError) or (
+            isinstance(exc, RuntimeError)
+            and "Unable to initialize backend" in str(exc)):
+        raise exc
+
+
 def image_batch(image_paths, find_peptides_parameters=None,
                 timestamp_epoch=None):
     """Find + persist PSFs for a set of images (pflib.py:883-997).
 
     Per-image failures are logged and skipped, matching the reference's
-    checkpointing behavior.
+    checkpointing behavior; device failures propagate.
     """
     if timestamp_epoch is None:
         timestamp_epoch = round(time.time())
@@ -102,7 +116,8 @@ def image_batch(image_paths, find_peptides_parameters=None,
         try:
             with _stage("detect/find_peptides"):
                 psfs = find_peptides(image, **find_peptides_parameters)
-        except Exception:
+        except Exception as exc:
+            _raise_if_device_failure(exc)
             logger.exception("image_batch: find_peptides failed for %s",
                              image_path)
             continue
@@ -126,11 +141,12 @@ def parallel_image_batch(image_paths, find_peptides_parameters=None,
     """Reference-signature batch driver (pflib.py:1000-1111).
 
     The reference fans images out over a Pool load-balanced by candidate
-    counts; the TPU equivalent is batching: images are grouped by shape and
+    counts; the equivalent here is batching: images are grouped by shape and
     each group runs through detect_and_fit_batch as ONE device program
     (find_peptides_batch). num_processes is accepted and ignored. Per-image
     failures are logged and skipped (the reference's checkpointing
-    behavior); non-'gauss' fit types fall back to the sequential driver.
+    behavior), device failures propagate; non-'gauss' fit types fall back
+    to the sequential driver.
     """
     if timestamp_epoch is None:
         timestamp_epoch = round(time.time())
@@ -173,7 +189,8 @@ def parallel_image_batch(image_paths, find_peptides_parameters=None,
         try:
             with _stage("detect/find_peptides_batch"):
                 psfs_list = find_peptides_batch(stack, **batch_parameters)
-        except Exception:
+        except Exception as exc:
+            _raise_if_device_failure(exc)
             logger.exception("parallel_image_batch: batched detection "
                              "failed for shape %s; falling back per-image",
                              shape)

@@ -49,16 +49,9 @@ class DetectConfig:
     # run_experiment / run_zstack), which compile one fixed shape.
     single_field_cap: int | None = None
     num_iters: int = 60
-    use_pallas: bool | None = None
     # 2 adds a theta0=90 restart covering optima across the 0/360
     # wraparound (beyond-reference accuracy at ~2x LM cost).
     theta_starts: int = 1
-    # Patch-gather implementation for the fit stage: 'auto' measures the
-    # backend's matmul throughput once per process and picks the one-hot
-    # MXU contraction on full-speed MXU hardware, XLA advanced-indexing
-    # gather elsewhere (bit-exact either way; see
-    # ops.candidates.resolve_gather_strategy).
-    gather_strategy: str = "auto"
 
     from_cli = classmethod(_from_cli)
 

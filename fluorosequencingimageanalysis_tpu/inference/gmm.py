@@ -21,14 +21,16 @@ import numpy as np
 
 from ..utils.rounding import py2_round as _py2_round
 from scipy.stats import norm
-from sklearn.cluster import KMeans
-from sklearn.mixture import BayesianGaussianMixture, GaussianMixture
 
 from .photometries import (_check_no_downsteps, _pairwise,
                            read_track_photometries_csv, _remainder_adjust)
 
 
 def _fit_gmm(X, n_components, n_init, n_iter, covariance_type, dpgmm=False):
+    # scikit-learn only on the sklearn-estimator paths: the batched device
+    # fitters and everything that imports this module need none.
+    from sklearn.mixture import BayesianGaussianMixture, GaussianMixture
+
     X = np.asarray(X, dtype=float).reshape(-1, 1)
     if dpgmm:
         g = BayesianGaussianMixture(covariance_type=covariance_type,
@@ -242,7 +244,7 @@ def gmm_photometries_batched(photometries, min_fluors=1, max_fluors=5,
                              force_num_fluors=None, cycle=None,
                              raw_photometries=None, lower_bound=None,
                              seed=0, mesh=None):
-    """TPU-native _gmm_photometries: every (num_fluors, restart) model of
+    """Batched _gmm_photometries: every (num_fluors, restart) model of
     the BIC selection fits in ONE batched device program
     (ops/gmm_batch.py) instead of the reference's one-GMM-per-Pool-task
     loop (MCsimlib.py:3209-3304). Same return contract:
@@ -290,7 +292,7 @@ def gmm_photometries_batched(photometries, min_fluors=1, max_fluors=5,
 def per_cycle_gmm_batched(photometries, min_fluors=1, max_fluors=5,
                           covariance_type="full", n_init=10, n_iter=100,
                           cycles=None, lower_bound=None, seed=0, mesh=None):
-    """TPU-native _per_cycle_gmm_MP: ALL cycles x component counts x
+    """Batched _per_cycle_gmm_MP: ALL cycles x component counts x
     restarts fit as one device program — the reference's nested Pool
     fan-out (MCsimlib.py:3307-3375) collapsed to a single dispatch.
     Same return contract: (all_fit_scores, all_fits, raw_photometries)
@@ -368,6 +370,8 @@ def _cluster_fit_2(intensities, max_num_drops=3, zero_level=5000,
     best_score = None
     best_esfi = None
     coincidences = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0)[:largest_coincidence]
+    from sklearn.cluster import KMeans
+
     for num_drops in range(min_num_drops, max_num_drops + 1):
         km = KMeans(n_clusters=num_drops + 1, init="k-means++",
                     n_init=n_init, max_iter=300, tol=0.0001)

@@ -3,7 +3,7 @@
 The reference fans one Pool task out per spot, each enumerating
 C(n_cycles + max_fluors, n_cycles) candidate sequences in Python
 (/root/reference/MCsimlib.py:5387-5558). Here all traces score all
-sequences in batched MXU matmuls (ops/lognormal.py); the host driver only
+sequences in batched matmuls (ops/lognormal.py); the host driver only
 shapes dicts and decodes winners.
 
 ``_intensities_to_signal_lognormal_v8`` is kept as an exact single-trace
@@ -78,7 +78,7 @@ def photometries_lognormal_fit_v8(photometries, beta, beta_sigma,
                                   allow_multidrop=True, max_deviation=3,
                                   quench_factor=0, quench_factors=None,
                                   mesh=None):
-    """Batched v8 fit over an entire photometries dict (TPU path).
+    """Batched v8 fit over an entire photometries dict (batched device path).
 
     Returns (signals, total_count, none_count, all_fit_info) exactly like
     the reference's _photometries_lognormal_fit_MP_v8 (MCsimlib.py:5496-5558).
@@ -156,7 +156,7 @@ def _photometries_lognormal_fit_MP_v8(photometries, beta, beta_sigma,
                                       allow_upsteps=False,
                                       allow_multidrop=True, max_deviation=3,
                                       quench_factor=0, quench_factors=None):
-    """Reference-signature wrapper; runs the batched TPU path
+    """Reference-signature wrapper; runs the batched device path
     (num_processes accepted for compatibility, unused)."""
     return photometries_lognormal_fit_v8(
         photometries, beta, beta_sigma, max_possible=max_possible,
@@ -176,7 +176,7 @@ def lognormal_fit_v8_from_csv(path, beta, beta_sigma, max_possible=5,
     The reference pipeline is CSV -> photometries dict -> one Pool task per
     trace (MCsimlib.py:5517-5540). Here the native parser
     (native/trackcsv.cpp) emits flat (N, F) arrays which feed the batched
-    MXU scorer directly; the signals dict is only assembled for the final
+    matmul scorer directly; the signals dict is only assembled for the final
     aggregated output. Falls back to the dict reader when the native parser
     is unavailable.
 

@@ -4,7 +4,7 @@ Exact host ports of the reference's superseded fitter generations
 (/root/reference/MCsimlib.py:3735-3885 [v1], 3982-4139 [v2], 4386-4540 [v3],
 4543-4768 [v4], 4771-4925 [v5], 4928-5128 [v6], 5131-5324 [v7],
 4142-4210 [nearest neighbor]). v8 (inference/lognormal.py) is the current
-production fitter and the only one with a batched TPU path; these exist for
+production fitter and the only one with a batched device path; these exist for
 API completeness and for reproducing historical analyses. The _MP drivers
 keep the reference signatures but run serially (each fit is microseconds;
 the Pool fan-out was pure interpreter-overhead mitigation).

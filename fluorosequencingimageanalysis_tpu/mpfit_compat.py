@@ -10,7 +10,7 @@ NotImplementedError — the reference pipeline never sets it), and the result
 attributes (params, perror, covar, fnorm, niter, nfev, status, errmsg,
 dof) — on top of scipy's bounded trust-region least squares. It is NOT a port of mpfit's internals: the
 pipeline's hot path (thousands of 5x5 PSF fits) runs on the batched
-lane-major TPU LM in ops/lm.py; this class exists for API parity with
+lane-major batched LM in ops/lm.py; this class exists for API parity with
 user code that drives mpfit directly.
 
 Status codes follow mpfit.py:754-790: 1 = converged (ftol), 2 = xtol,

@@ -124,7 +124,7 @@ def read_track_photometries_arrays(path, downstep_filtered=False,
     """Arrays-native ingestion: parse a track CSV straight to flat numpy
     arrays, skipping the photometries-dict entirely.
 
-    This is the TPU-first data path: the batched fitters (ops/lognormal.py
+    This is the device-first data path: the batched fitters (ops/lognormal.py
     score_traces, ops/stepfit_batch.py) consume (N, F) arrays directly, so
     for large experiments the per-row Python dict/tuple assembly of
     read_track_photometries_csv (MCsimlib.py:2534-2575) is pure overhead.

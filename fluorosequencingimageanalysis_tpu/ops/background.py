@@ -1,4 +1,4 @@
-"""TPU-native SExtractor mesh background estimation over image stacks.
+"""Batched SExtractor mesh background estimation over image stacks.
 
 Device redesign of the host ``pipeline.spots._mesh_background`` (the
 photutils ``Background`` stand-in the sextractor photometry metric uses,
@@ -15,7 +15,7 @@ program over a ``[frames, H, W]`` stack:
 - the mesh median filter is a static reflect-index gather + sort
   (scipy ``median_filter`` rank convention: element ``k*k // 2`` of the
   sorted window, window spanning ``[i - k//2, i + (k-1)//2]``);
-- the cubic ``BkgZoomInterpolator`` upsample becomes two MXU matmuls
+- the cubic ``BkgZoomInterpolator`` upsample becomes two matmuls
   against host-precomputed spline basis matrices: ``scipy.ndimage.zoom``
   is LINEAR in the mesh, so applying it to identity basis vectors once
   per (n, box_size, order) yields matrices that reproduce it exactly
@@ -166,7 +166,7 @@ def stack_background_jit(stack, box_size=10, filter_size=10,
     the mesh, cubic-spline zoom back to full resolution, crop the pad.
     """
     T, H, W = stack.shape
-    # f32 is the TPU compute dtype; f64 inputs (possible only under
+    # f32 is the production compute dtype; f64 inputs (possible only under
     # jax_enable_x64) keep f64 so the hard sigma-clip / crowded-box
     # threshold comparisons make the SAME accept/reject decisions as the
     # f64 host oracle — in f32 a pixel within one ulp of med±3σ can flip,

@@ -92,7 +92,7 @@ def consolidate(centers_h, centers_w, r2, valid, radius=4.0,
     # adj[i, j]: valid higher-priority rival j of i. Priority is encoded
     # directly in the predicate (higher r2 wins, index breaks ties — the
     # same order a stable sort by descending r2 would give), which avoids a
-    # TPU sort + permutation gathers entirely. The barrier forces XLA to
+    # device sort + permutation gathers entirely. The barrier forces XLA to
     # materialize adj once instead of refusing the O(N^2) distance
     # computation into every while-loop round.
     score = _score(r2, v)

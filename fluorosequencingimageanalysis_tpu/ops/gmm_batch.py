@@ -5,10 +5,10 @@ The reference fits its intensity-level mixtures one model at a time with
 old scikit-learn, fanning the per-num_fluors fits over a process Pool
 (/root/reference/MCsimlib.py:3209-3304 [_gmm_photometries(_MP)]) and the
 per-cycle fits over another (:3307-3375 [_per_cycle_gmm_MP]) — the last of
-SURVEY section 2.4's P4 parameter-space fan-outs without a TPU-native
+SURVEY section 2.4's P4 parameter-space fan-outs without a batched
 equivalent.
 
-TPU design: a 1D GMM's EM iteration is nothing but dense reductions, so
+Design: a 1D GMM's EM iteration is nothing but dense reductions, so
 ALL models fit simultaneously as one array program:
 
   models   (G, B, K)   G groups (e.g. cycles; each has its own data) x

@@ -2,14 +2,14 @@
 
 The reference fits every 5x5 candidate patch *one at a time* with the MINPACK
 -lineage ``mpfit`` trust-region LM (/root/reference/agpy/mpfit/mpfit.py:1030-
-1341; <=200 iterations x ~8 residual evaluations each, per spot). On TPU we
+1341; <=200 iterations x ~8 residual evaluations each, per spot). Here we
 instead run thousands of fits as one lockstep array program inside a single
 ``lax.fori_loop``.
 
-TPU layout: everything is *lane-major* structure-of-arrays — parameters are
+Layout: everything is *lane-major* structure-of-arrays — parameters are
 seven (N,) vectors, pixel quantities are (25, N), and the normal matrix is
-(7, 7, N) — so the fit-batch axis N lands on the 128-wide vector lanes and
-every op is a full-width VPU op. The naive batch-major layout ((N, 25, 5x5)
+(7, 7, N) — so the fit-batch axis N is the contiguous, vectorized axis and
+every op is a full-width elementwise op. The naive batch-major layout ((N, 25, 5x5)
 tensors + batched LU solves) pads its minor dims onto (8, 128) tiles with
 ~18x waste and is an order of magnitude slower. The 7x7 SPD system is solved
 by a compile-time-unrolled Cholesky (no LU, no scalar loops), and the
@@ -183,7 +183,7 @@ def fit_gaussians_batched(patches, p0=None, lo=None, hi=None, num_iters=60,
     Numerical note: each patch is normalized by its max absolute value before
     optimization (the model is linear in H and A, so only those two parameters
     and their bounds are rescaled). This keeps the LM well-conditioned in
-    float32 on TPU regardless of camera bit depth.
+    float32 regardless of camera bit depth.
     """
     patches = jnp.asarray(patches)
     if not jnp.issubdtype(patches.dtype, jnp.floating):
@@ -274,7 +274,7 @@ def fit_gaussians_batched(patches, p0=None, lo=None, hi=None, num_iters=60,
     # Fixed-trip fori_loop, not an early-exit while_loop: lockstep batches
     # essentially never have EVERY fit converge early (noise patches wander
     # at their bounds), so a convergence test only adds a cross-lane
-    # reduction per iteration — measured as a net loss on TPU.
+    # reduction per iteration.
     lam_init = jnp.full((n,), lam0, dt)
     state0 = (p, lam_init, cost_of(p))
     p, _, cost = lax.fori_loop(0, num_iters, body, state0)

@@ -11,7 +11,7 @@ Reference metrics (/root/reference/flexlibrary.py:160-317):
 - maximum: sum of the top-k pixels in the square, optionally
   median-subtracted (:264-284).
 
-TPU design: one batched gather of patches per (image, radius) + masked
+Design: one batched gather of patches per (image, radius) + masked
 reductions; the median over the 312-pixel brim is a sort-based reduction.
 All interior spots of a frame are measured in a single dispatch; edge spots
 (truncated squares) fall back to an exact host implementation that

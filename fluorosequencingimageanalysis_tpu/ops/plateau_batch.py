@@ -24,10 +24,9 @@ Two scoring backends:
   every score matches to the last ulp — and so does every order-dependent
   selection, including mathematical ties (integer-valued photometries
   make exact score ties common).
-- ``scores='device'``: the jitted einsum scorer — the TPU path for very
+- ``scores='device'``: the jitted einsum scorer — the device path for very
   large N. Scoring runs in float64 only when ``jax_enable_x64`` is set;
-  in the production TPU configuration (x64 unset — TPUs have no f64
-  units) it runs in float32. Rows are mean-centered on host in f64
+  in the production configuration (x64 unset) it runs in float32. Rows are mean-centered on host in f64
   first (R^2 and the downstep comparisons are shift-invariant), which
   keeps the f32 scores at ~1e-6 relative accuracy at raw photometry
   magnitudes instead of losing ~7 digits to cancellation — but
@@ -156,8 +155,9 @@ def _scores_device(x, T, max_num_drops):
     avg = member / np.maximum(seg_len, 1.0)[:, None, :]         # (C, T, S)
     member_j = jnp.asarray(member)
     avg_j = jnp.asarray(avg)
-    seg_mean = jnp.einsum("nt,cts->ncs", x, avg_j)              # (N, C, S)
-    fit = jnp.einsum("ncs,cts->nct", seg_mean, member_j)        # fused
+    hi = jax.lax.Precision.HIGHEST  # TF32 breaks the segment means
+    seg_mean = jnp.einsum("nt,cts->ncs", x, avg_j, precision=hi)  # (N,C,S)
+    fit = jnp.einsum("ncs,cts->nct", seg_mean, member_j, precision=hi)
     res = jnp.sum((x[:, None, :] - fit) ** 2, axis=-1)          # (N, C)
     tot = jnp.sum((x - jnp.mean(x, axis=1, keepdims=True)) ** 2,
                   axis=1)                                       # (N,)

@@ -4,29 +4,30 @@ The reference is strictly single-node — its entire distributed story is
 ``multiprocessing.Pool`` with pickle IPC (/root/reference/pflib.py:1000-1111
 and SURVEY section 2.4), and the one place cross-process state would be
 needed is explicitly unimplemented
-(/root/reference/flexlibrary.py:2673-2689). The TPU design's story beyond a
-single pod slice is multi-process SPMD: every host runs THIS SAME program,
+(/root/reference/flexlibrary.py:2673-2689). Here the story beyond one
+GPU host is multi-process SPMD: every host runs THIS SAME program,
 contributes the fields it loaded locally, and ``jax.distributed`` + GSPMD
 execute the one sharded experiment step over the global ('data', 'model')
 mesh. Fields are purely data-parallel, so the only inter-host (DCN) traffic
 is the coordination handshake and the final result gather — the hot compute
-and the fit-stage reshard ride ICI inside each host's slice.
+and the fit-stage reshard stay on each host's GPUs (NVLink within a host).
 
 Usage — identical on every host::
 
     from fluorosequencingimageanalysis_tpu.parallel import multihost
 
-    multihost.initialize()                  # env-driven on TPU pods; or pass
-                                            # coordinator/num_processes/id
+    multihost.initialize(coordinator_address="host0:1234",
+                         num_processes=2, process_id=rank)
     local_fields = load_my_shard()          # [F_local, C, H, W]
     out = multihost.run_experiment_step(local_fields, max_candidates=256)
     # out: host-replicated dict of np arrays over ALL processes' fields,
     # in process order.
 
 Tested end-to-end with real multi-process execution (Gloo collectives over
-two 4-virtual-device CPU processes) in tests/test_multihost.py; the same
-code path drives TPU pods, where ``initialize()`` picks up the cluster from
-the environment.
+two 4-virtual-device CPU processes) in tests/test_multihost.py; on GPU
+hosts the same code path runs with NCCL collectives. A GPU cluster that
+no scheduler describes needs the explicit coordinator address, process
+count and process id.
 """
 
 from __future__ import annotations
@@ -46,8 +47,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     """Join this process to a multi-host JAX cluster (idempotent).
 
     With no arguments, ``jax.distributed.initialize`` auto-detects the
-    cluster from the environment (the normal mode on TPU pods). Explicit
-    arguments support manual clusters (including the CPU test cluster).
+    cluster from the environment where a scheduler describes one (SLURM,
+    for example). Explicit arguments support every other cluster: plain
+    GPU hosts, and the CPU test cluster.
     Safe to call when already initialized or when single-process.
     """
     global _INITIALIZED
@@ -200,10 +202,10 @@ def run_experiment(local_stacks, csv_path=None, config=None, mesh=None,
         consolidation_radius=det.consolidation_radius,
         max_candidates=mc, max_spots=max_spots,
         num_iters=det.num_iters, theta_starts=det.theta_starts,
-        use_pallas=det.use_pallas, upsample_factor=reg.upsample_factor,
+        upsample_factor=reg.upsample_factor,
         photometry_method=pipe._device_phot_method(),
         photometry_radius=phot.radius, photometry_brim=phot.brim_size,
-        photometry_min=None, gather_strategy=pipe._gather_strategy())
+        photometry_min=None)
     if mesh is None:
         mesh = global_mesh()
     host_phot = phot.method == "sextractor"
@@ -359,8 +361,7 @@ def run_timetrace(movie, csv_path=None, config=None, mesh=None,
         consolidation_radius=det.consolidation_radius,
         max_candidates=(max_candidates if max_candidates is not None
                         else det.single_field_cap),
-        num_iters=det.num_iters,
-        gather_strategy=pipe._gather_strategy())
+        num_iters=det.num_iters)
     h0, w0, fits = _allgather_pickled((h0_l, w0_l, fits_l))[0]
     N = len(h0)
     if N == 0:

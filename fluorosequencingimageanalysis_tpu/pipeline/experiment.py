@@ -1,7 +1,7 @@
 """Experiment hierarchy: single-field, multichannel, multifield, timetrace.
 
 API/semantics parity with the reference's flexlibrary experiment classes
-(/root/reference/flexlibrary.py:509-4021), rebuilt on the TPU kernel layer:
+(/root/reference/flexlibrary.py:509-4021), rebuilt on the device kernel layer:
 registration uses the batched XLA phase correlation, tracking the vectorized
 greedy matcher, and photometry the per-image batched kernels.
 """
@@ -1101,7 +1101,7 @@ class TimetraceExperiment(Experiment):
         """Step-fit every track (flexlibrary.py:3642-3713).
 
         With ``batched=True`` (default) the Chung-Kennedy filter and the
-        sliding-t detector run as single jitted TPU calls over the full
+        sliding-t detector run as single jitted device calls over the full
         (num_tracks, num_frames) photometry stack (ops/stepfit_batch.py);
         results are identical to the per-trace host chain.
         """
@@ -1144,7 +1144,7 @@ class TimetraceExperiment(Experiment):
                                 photometry_method="mexican_hat",
                                 mirror_start=0, chung_kennedy=0,
                                 p_threshold=0.01, **kwargs):
-        """Batched fast path of stepfit_tracks: one TPU dispatch for the
+        """Batched fast path of stepfit_tracks: one device dispatch for the
         CK filter and one for the sliding-t detector across all tracks."""
         from ..ops.stepfit_batch import stepfit_batched
         from .traces import PhotometryTrace, PlateauTrace

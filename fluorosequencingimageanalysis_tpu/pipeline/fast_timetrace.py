@@ -6,7 +6,7 @@ first frame, follow each spot frame-to-frame by luminosity centroid with
 an S/N gate (flexlibrary.py:1172-1317), measure a photometry trace per
 track, and step-fit every trace.
 
-TPU-first redesign: the WHOLE tracking recursion runs as one jitted
+Device-first redesign: the WHOLE tracking recursion runs as one jitted
 ``lax.scan`` over the movie — per frame, all live spots' centroid
 windows, S/N windows, and gating decisions are batched array ops, so a
 T-frame movie costs one device dispatch instead of 2T (the class path's
@@ -38,8 +38,7 @@ import numpy as np
 from ..utils.rounding import py2_round
 
 # Edge mask of a 5x5 slice (the 16 border pixels illumina_s_n reduces
-# over) — a host constant, NOT an in-jit scatter (lane scatters have
-# pathological compile times on some TPU backends).
+# over) — a host constant, NOT an in-jit scatter.
 _EDGE_MASK_5 = np.ones((5, 5), bool)
 _EDGE_MASK_5[1:4, 1:4] = False
 

@@ -214,7 +214,7 @@ class Image:
         self._photometry_cache = {}
 
     def find_gaussian_psfs(self, pflib_args=None, spots_append=True):
-        """Run the TPU spot finder on this image (flexlibrary.py:426-455)."""
+        """Run the device spot finder on this image (flexlibrary.py:426-455)."""
         from ..models.detect import find_peptides
         if pflib_args is None:
             pflib_args = {}

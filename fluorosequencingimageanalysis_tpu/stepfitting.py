@@ -251,9 +251,8 @@ def chi_squared_fit_batch(traces, num_steps_multiplier=1, num_steps=None,
     (native/chisqfit.cpp) threads the batch; when the native build is
     unavailable it falls back to the exact host loop.
 
-    ``engine``: None (default) asks the backend probe registry
-    (utils/probes.chisq_engine — a measured native-vs-device A/B, the
-    native core preferred unless the device wins clearly); "native"
+    ``engine``: None (default) takes the per-backend constant
+    (utils/probes.chisq_engine); "native"
     forces the C++ core (host loop if unbuilt); "device" forces the
     jitted [N, T] program (ops/chisq_batch_device — equal in exact
     arithmetic, may diverge from the oracle on last-ulp-tied split

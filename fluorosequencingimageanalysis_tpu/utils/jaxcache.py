@@ -7,9 +7,8 @@ path exists and skips its own write, and every later reader loads the
 TORN entry — ``backend.deserialize_executable`` then SEGFAULTS the
 process (observed: a full pytest run killed by a half-written CPU cache
 entry after an overlapping bench run compiled the same stepfit shape).
-Concurrent compiles of one shape are this framework's NORMAL state: the
-probe registry spawns compile subprocesses, and multi-process
-experiments (tests, multihost) compile identical programs.
+Concurrent compiles of one shape are this framework's NORMAL state:
+multi-process runs (parallel tests, multihost) compile identical programs.
 
 :func:`ensure_atomic_cache_writes` monkeypatches ``LRUCache.put`` to
 write to a pid-suffixed temp file and ``os.replace`` it into place —

@@ -11,8 +11,6 @@ import os
 import time
 
 import numpy as np
-from PIL import Image as PILImage
-from PIL import ImageDraw, ImageOps
 
 from .hashing import psfs_filename
 from .imageio import read_image
@@ -61,6 +59,10 @@ def save_psfs_png(psfs, image_path, timestamp_epoch=None, output_path=None,
                   contrast_filter_args=None):
     """Highlight PSFs with colored squares and save as PNG
     (pflib.py:783-880)."""
+    # Pillow only where a PNG is drawn: the compute path needs none.
+    from PIL import Image as PILImage
+    from PIL import ImageDraw, ImageOps
+
     image_path = os.path.abspath(image_path)
     if output_path is None:
         if timestamp_epoch is None:

@@ -1,5 +1,5 @@
 """Compatibility shim: the agpy ``gaussfitter`` surface the pipeline uses
-(/root/reference/agpy/gaussfitter.py), backed by the batched TPU LM.
+(/root/reference/agpy/gaussfitter.py), backed by the batched device LM.
 
 The default elliptical+rotated+vheight case (the pipeline's only use,
 pflib.py:199-214) runs on the lane-major batched LM; reduced modes

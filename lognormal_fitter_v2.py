@@ -3,7 +3,7 @@
 Fit track photometries using the lognormal algorithm.
 
 CLI parity: /root/reference/lognormal_fitter_v2.py. The per-spot Pool
-fan-out is replaced by the batched TPU v8 scorer.
+fan-out is replaced by the batched device v8 scorer.
 """
 
 import argparse

@@ -1,5 +1,5 @@
 """Compatibility shim: the reference's ``peptide_simulator`` module
-(/root/reference/peptide_simulator.py), backed by the TPU-native sim
+(/root/reference/peptide_simulator.py), backed by the batched device sim
 layer."""
 
 from fluorosequencingimageanalysis_tpu.sim.events import (  # noqa

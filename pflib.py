@@ -1,5 +1,5 @@
 """Compatibility shim: the reference's ``pflib`` module surface
-(/root/reference/pflib.py), backed by the TPU-native framework.
+(/root/reference/pflib.py), backed by the batched device framework.
 
 Scripts written against the reference (``import pflib``;
 pflib.parallel_image_batch / find_peptides / save_psfs_* / epoch hashes)
@@ -96,7 +96,7 @@ def _fit_2d_gaussian_monte_carlo(subimage, N_iter=10 ** 3):
     the reference's proposal distributions, keep the lowest-RMS candidate.
     Returns (h_0, w_0, H, A, sigma_h, sigma_w, theta, fit_image).
 
-    The batched TPU version over many patches is
+    The batched device version over many patches is
     models.detect._detect_and_fit_monte_carlo.
     """
     subimage = np.asarray(subimage, dtype=np.float64)

@@ -3,7 +3,7 @@
 These are independent NumPy/SciPy implementations of the published algorithms
 the reference pipeline uses (elliptical-Gaussian least squares, Welch t-tests,
 Guizar-Sicairos phase correlation, ...), written from the algorithm
-definitions. The TPU kernels must match them to documented tolerances.
+definitions. The device kernels must match them to documented tolerances.
 """
 
 from __future__ import annotations

@@ -419,3 +419,37 @@ def test_run_zstack_lean_overflow_warns():
                         max_candidates=256, lean=True, max_spots=2)
     with pytest.raises(ValueError, match="lean=True requires"):
         pipe.run_zstack(stack, max_candidates="exhaustive", lean=True)
+
+
+def test_run_experiment_needs_no_pillow_or_sklearn(tmp_path):
+    """Importing Pipeline and running an experiment to its CSV needs only
+    JAX, numpy and scipy: Pillow and scikit-learn are blocked."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = f"""
+import sys
+for name in ("PIL", "PIL.Image", "sklearn", "sklearn.mixture",
+             "sklearn.cluster"):
+    sys.modules[name] = None
+import numpy as np
+from fluorosequencingimageanalysis_tpu import Pipeline
+from fluorosequencingimageanalysis_tpu.parallel.mesh import make_mesh
+rng = np.random.default_rng(0)
+stack = rng.normal(400.0, 8.0, (1, 2, 48, 48)).astype(np.float32)
+hh, ww = np.indices((48, 48))
+stack += 3000.0 * np.exp(-((hh - 20) ** 2 + (ww - 25) ** 2) / 3.4)
+out = Pipeline(mesh=make_mesh(1)).run_experiment(
+    stack, csv_path={str(tmp_path / "t.csv")!r}, max_candidates=64)
+assert out["rows"], out
+assert "PIL" not in [m for m, v in sys.modules.items() if v is not None]
+print("ROWS", len(out["rows"]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ROWS" in proc.stdout

@@ -37,7 +37,9 @@ def _render_experiment(rng, F=2, C=6, H=128, W=128, beta=30000.0,
 
     stack = rng.normal(400.0, 8.0, (F, C, H, W))
     plants = {}  # (field, h, w) -> planted fluor-count sequence
-    base_pos = [(h, w) for h in (20, 45, 70, 95) for w in (24, 64, 104)]
+    # A 25 x 40 px grid filling the field (12 spots at 128 x 128).
+    base_pos = [(h, w) for h in range(20, H - 20, 25)
+                for w in range(24, W - 20, 40)]
     for f in range(F):
         for i, (h0, w0) in enumerate(base_pos):
             h = h0 + int(rng.integers(-3, 4))

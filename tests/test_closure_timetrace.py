@@ -19,28 +19,36 @@ from fluorosequencingimageanalysis_tpu import Pipeline
 from fluorosequencingimageanalysis_tpu.parallel.mesh import make_mesh
 
 
-def _render_movie(rng, T=72, H=96, W=96, beta=20000.0, noise=8.0):
-    """Plant a 3x3 grid of spots with known bleach frames.
+def _render_movie(rng, T=72, H=96, W=96, beta=20000.0, noise=8.0,
+                  spacing=28, bleach_slots=None):
+    """Plant a grid of spots (``spacing`` px apart; 3x3 at 96 x 96) with
+    known bleach frames.
 
-    Spot i starts with k0 in {1,2,3} fluors and loses one at each of k0
-    known frames; per-frame amplitude is k(t)*beta with 1% multiplicative
-    jitter, scaled so the mexican-hat crown reads k(t)*beta.
+    Spot i starts with k0 in {1,2,3} fluors (capped at the number of
+    bleach slots) and loses one at each of k0 known frames, drawn from
+    ``bleach_slots`` (default: every 10th frame from 14 to T - 8);
+    per-frame amplitude is k(t)*beta with 1% multiplicative jitter,
+    scaled so the mexican-hat crown reads k(t)*beta.
     """
+    if bleach_slots is None:
+        # Bleach frames past the sliding-t warmup (the reference fitter
+        # cannot place steps in the first window_radius frames) and >= 10
+        # frames apart so every plateau outlasts the test window.
+        bleach_slots = np.arange(14, T - 8, 10)
+    max_k0 = min(3, len(bleach_slots))
     unit = planted_unit_psf()
     r = unit.shape[0] // 2
     u_crown = unit[r - 3:r + 4, r - 3:r + 4].sum()
     movie = rng.normal(400.0, noise, (T, H, W))
     plants = {}  # (h, w) -> (k0, bleach frames)
-    base = [(h, w) for h in (20, 48, 76) for w in (20, 48, 76)]
+    base = [(h, w) for h in range(20, H - 19, spacing)
+            for w in range(20, W - 19, spacing)]
     for i, (h0, w0) in enumerate(base):
         h = h0 + int(rng.integers(-2, 3))
         w = w0 + int(rng.integers(-2, 3))
-        k0 = 1 + (i % 3)
-        # Bleach frames past the sliding-t warmup (the reference fitter
-        # cannot place steps in the first window_radius frames) and >= 10
-        # frames apart so every plateau outlasts the test window.
+        k0 = 1 + (i % max_k0)
         frames = sorted(int(f) for f in rng.choice(
-            np.arange(14, T - 8, 10), size=k0, replace=False))
+            bleach_slots, size=k0, replace=False))
         k = np.full(T, k0)
         for j, bf in enumerate(frames):
             k[bf:] = k0 - 1 - j

@@ -1,7 +1,6 @@
 """Tests for candidate detection + whole-field spot finding."""
 
 import numpy as np
-import pytest
 from scipy.ndimage import median_filter as scipy_median_filter
 from scipy.signal import correlate as scipy_correlate
 
@@ -228,68 +227,6 @@ def test_hierarchical_extraction_equals_flat():
         assert flat_set == blk_set
 
 
-def test_gather_patches_onehot_exact():
-    import jax
-    import jax.numpy as jnp
-    from fluorosequencingimageanalysis_tpu.ops.candidates import (
-        gather_patches, gather_patches_onehot)
-    rng = np.random.default_rng(3)
-    img = jnp.asarray(rng.normal(1000, 100, (64, 64)))
-    hs = jnp.asarray(rng.integers(2, 61, 37), jnp.int32)
-    ws = jnp.asarray(rng.integers(2, 61, 37), jnp.int32)
-    a = jax.jit(gather_patches)(img, hs, ws)
-    b = jax.jit(gather_patches_onehot)(img, hs, ws)
-    assert bool(jnp.all(a == b))
-
-
-def test_gather_strategy_resolution_and_equality(monkeypatch):
-    """'auto' resolves by measured matmul throughput (env-overridable);
-    both strategies give identical detect results end-to-end."""
-    import jax.numpy as jnp
-    from fluorosequencingimageanalysis_tpu.ops import candidates as cand
-    from fluorosequencingimageanalysis_tpu.models.detect import (
-        detect_and_fit)
-
-    # Resolution: concrete passes through, auto consults the probe
-    # registry (utils/probes since round 4), env var overrides, junk
-    # rejected.
-    from fluorosequencingimageanalysis_tpu.utils import probes
-
-    assert cand.resolve_gather_strategy("gather") == "gather"
-    assert cand.resolve_gather_strategy("onehot") == "onehot"
-    monkeypatch.setattr(probes, "matmul_tflops", lambda: 50.0)
-    assert cand.resolve_gather_strategy("auto") == "onehot"
-    monkeypatch.setattr(probes, "matmul_tflops", lambda: 0.5)
-    assert cand.resolve_gather_strategy("auto") == "gather"
-    monkeypatch.setenv("FSIA_GATHER", "onehot")
-    assert cand.resolve_gather_strategy("auto") == "onehot"
-    monkeypatch.setenv("FSIA_GATHER", "bogus")
-    with pytest.raises(ValueError):
-        cand.resolve_gather_strategy("auto")
-    monkeypatch.delenv("FSIA_GATHER")
-    with pytest.raises(ValueError):
-        cand.resolve_gather_strategy("sideways")
-
-    # The real probe runs and returns something positive (memoized).
-    monkeypatch.undo()
-    assert cand.measured_mxu_tflops() > 0
-
-    # End-to-end equality of the two strategies on a planted field.
-    rng = np.random.default_rng(9)
-    img = rng.normal(400, 8, (64, 64)).astype(np.float32)
-    hh, ww = np.mgrid[0:64, 0:64].astype(np.float32)
-    for (h, w) in [(20.3, 30.6), (40.7, 50.2), (12.2, 52.8)]:
-        img += 3000.0 * np.exp(
-            -(((hh - h) ** 2) + ((ww - w) ** 2)) / (2 * 1.3 ** 2))
-    a = detect_and_fit(jnp.asarray(img), max_candidates=64,
-                       gather_strategy="gather")
-    b = detect_and_fit(jnp.asarray(img), max_candidates=64,
-                       gather_strategy="onehot")
-    np.testing.assert_array_equal(np.asarray(a.keep), np.asarray(b.keep))
-    np.testing.assert_array_equal(np.asarray(a.params),
-                                  np.asarray(b.params))
-
-
 def test_find_peptides_batch_matches_single():
     import jax.numpy as jnp
     from fluorosequencingimageanalysis_tpu.models.detect import (
@@ -348,23 +285,27 @@ def test_find_candidates_image_smaller_than_bucket():
 
 
 def test_find_candidates_batch_pallas_honors_parameters():
-    """use_pallas must not silently ignore a non-default
-    median_filter_size (the fused kernel hardcodes 5x5; non-default
-    parameters fall back to the general path)."""
+    """The batched candidate path honors a non-default
+    median_filter_size: it matches the single-image candidate map
+    (ops.candidates.candidate_map) at size 3, candidate for candidate."""
     import jax.numpy as jnp
     from fluorosequencingimageanalysis_tpu.ops.candidates import (
-        find_candidates_batch)
+        find_candidates, find_candidates_batch)
 
     rng = np.random.default_rng(1)
     img = rng.normal(400, 8, (1, 96, 96)).astype(np.float32)
     img[0, 30:35, 40:45] += 2500
-    ref = find_candidates_batch(jnp.asarray(img), median_filter_size=3,
-                                use_pallas=False)
-    via_pallas_flag = find_candidates_batch(jnp.asarray(img),
-                                            median_filter_size=3,
-                                            use_pallas=True)
-    for a, b in zip(ref, via_pallas_flag):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    hs, ws, valid, count = find_candidates_batch(
+        jnp.asarray(img), median_filter_size=3, max_candidates=512)
+    h1, w1, v1, c1 = find_candidates(jnp.asarray(img[0]),
+                                     median_filter_size=3,
+                                     max_candidates=512)
+    assert int(count[0]) == int(c1)
+    got = set(zip(np.asarray(hs[0])[np.asarray(valid[0])].tolist(),
+                  np.asarray(ws[0])[np.asarray(valid[0])].tolist()))
+    want = set(zip(np.asarray(h1)[np.asarray(v1)].tolist(),
+                   np.asarray(w1)[np.asarray(v1)].tolist()))
+    assert got == want
 
 
 def test_nan_r2_fit_is_kept_like_reference(monkeypatch):
@@ -392,7 +333,7 @@ def test_nan_r2_fit_is_kept_like_reference(monkeypatch):
     # flips between NaN and -inf).
     img = np.zeros((32, 32), np.float32)
     res = det.detect_and_fit_batch(jnp.asarray(img[None]), max_candidates=3,
-                                   num_iters=8, use_pallas=False)
+                                   num_iters=8)
     r2 = float(np.asarray(res.r2)[0, 0])
     assert np.isnan(r2), f"constant patch should fit exactly (r2={r2})"
     assert bool(np.asarray(res.keep)[0, 0]), \
@@ -441,9 +382,7 @@ def test_exhaustive_chunked_equals_single_bucket():
     ref = detect_and_fit(img, max_candidates=512, num_iters=25)
     count = int(ref.cand_count)
     assert count > 64, "field too sparse for a multi-chunk test"
-    res = detect_and_fit_exhaustive(img[None], chunk=32, num_iters=25,
-                                    use_pallas=False,
-                                    gather_strategy="gather")
+    res = detect_and_fit_exhaustive(img[None], chunk=32, num_iters=25)
     assert int(res.cand_count[0]) == count
     k_ref = np.asarray(ref.keep)
     k_chk = res.keep[0]
@@ -475,10 +414,9 @@ def test_find_peptide_centers_exhaustive_matches_capped():
     rng = np.random.default_rng(6)
     img, _ = _synthetic_field(rng, shape=(96, 96), n_spots=8)
     img = img.astype(np.float32)
-    h_a, w_a, fits_a, count_a = find_peptide_centers(
-        img, num_iters=25, gather_strategy="gather")
+    h_a, w_a, fits_a, count_a = find_peptide_centers(img, num_iters=25)
     h_b, w_b, fits_b, count_b = find_peptide_centers(
-        img, max_candidates=1024, num_iters=25, gather_strategy="gather")
+        img, max_candidates=1024, num_iters=25)
     assert count_a == count_b
     np.testing.assert_array_equal(h_a, h_b)
     np.testing.assert_array_equal(w_a, w_b)
@@ -528,8 +466,7 @@ def test_exhaustive_chunked_randomized_sweep():
         count = int(ref.cand_count)
         chunk = max(16, count // 3)  # force >= 3 chunks
         res = detect_and_fit_exhaustive(img[None], chunk=chunk,
-                                        num_iters=20, use_pallas=False,
-                                        gather_strategy="gather")
+                                        num_iters=20)
         assert int(res.cand_count[0]) == count, trial
         k_ref = np.asarray(ref.keep)
         k_chk = res.keep[0]

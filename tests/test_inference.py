@@ -287,7 +287,7 @@ def test_lognormal_fit_v8_from_csv(tmp_path):
 
 def test_v8_batched_matches_host_at_reference_shape():
     """Config-5 shape (n_cycles=12, max_fluors=5 -> 6,188 sequences/trace,
-    the reference's cost warning MCsimlib.py:5426-5466): the MXU scorer
+    the reference's cost warning MCsimlib.py:5426-5466): the matmul scorer
     must agree with the exact host loop trace-for-trace."""
     import sys, os
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))

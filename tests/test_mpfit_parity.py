@@ -1,4 +1,4 @@
-"""Head-to-head parity: batched TPU LM vs the TRUE reference mpfit.
+"""Head-to-head parity: batched device LM vs the TRUE reference mpfit.
 
 BASELINE.md demands "PSF-fit parameter RMSE vs mpfit reference <= 1e-3".
 Round 1 proved parity only against a scipy TRF stand-in; this file closes

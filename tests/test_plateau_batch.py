@@ -155,8 +155,8 @@ def test_device_scoring_single_plateau_exact_zero():
 
 
 def test_device_scoring_f32_production_configuration():
-    """The production configuration (jax_enable_x64 unset: TPUs have no
-    f64 units) scores in float32. With host-side f64 row centering the
+    """The production configuration (jax_enable_x64 unset) scores in
+    float32. With host-side f64 row centering the
     f32 scores must stay within ~1e-5 of the exact host scores at raw
     photometry magnitudes, and the selected fits must match the host on
     non-tied data. Regression: the device backend silently downcast
